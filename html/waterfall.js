@@ -1,4 +1,4 @@
-/* Canvas spectrum waterfall for webradio-tpu.
+/* Canvas spectrum waterfall for webradio.
  *
  * Behavioural parity with the reference widget (html/waterfall.js there):
  * one new spectrum row is painted at the top per update, the image scrolls

@@ -1,4 +1,4 @@
-// webradio-tpu native ingest runtime.
+// webradio native ingest runtime.
 //
 // The reference implements its capture path in C++: a USB async thread
 // converts u8 IQ to float and fills a 4-slot ring under a mutex+condvar,
@@ -22,6 +22,7 @@
 #include <cmath>
 #include <condition_variable>
 #include <cstdint>
+#include <cstdio>
 #include <cstring>
 #include <deque>
 #include <mutex>
@@ -277,14 +278,12 @@ void wr_rtltcp_close(void* session) { delete static_cast<WrRtlTcp*>(session); }
 // synthetic multi-carrier source (off-GIL tone synthesizer)
 // ---------------------------------------------------------------------------
 //
-// The Python ToneSource's numpy loop holds the GIL and itself falls below
-// real time at mass-monitoring widths under full serving load (BASELINE
-// r4 #6: 1119/1406 source blocks at C=60k). This synthesizes the same
-// carrier ensemble (io/source.py ToneSource laws: AM 1+0.5 sin envelope,
-// NBFM with 5 kHz deviation via the closed-form phase integral) on a C++
-// thread paced to the nominal rate, pushing [2, N] float32 plane blocks
-// into a drop-oldest ring — the same producer contract as real hardware
-// DMA (rtlsdrtuner.cxx:86-117).
+// The Python ToneSource's numpy loop holds the GIL the serving pump
+// needs. This synthesizes the same carrier ensemble (io/source.py
+// ToneSource laws: AM 1+0.5 sin envelope, NBFM with 5 kHz deviation via
+// the closed-form phase integral) on a C++ thread paced to the nominal
+// rate, pushing [2, N] float32 plane blocks into a drop-oldest ring — the
+// same producer contract as real hardware DMA (rtlsdrtuner.cxx:86-117).
 
 struct WrTone {
   double fs = 0;
@@ -393,6 +392,15 @@ int wr_tone_pop(void* session, float* out, int64_t timeout_ms) {
 
 int64_t wr_tone_dropped(void* session) {
   return static_cast<WrTone*>(session)->ring->dropped.load();
+}
+
+// Stop the synthesizer and wake every blocked wr_tone_pop (they return 0
+// once the ring is empty) without freeing the session: the caller frees
+// it with wr_tone_close after its poppers have returned.
+void wr_tone_shutdown(void* session) {
+  auto* s = static_cast<WrTone*>(session);
+  s->stop.store(true);
+  wr_ring_close(s->ring);
 }
 
 void wr_tone_close(void* session) { delete static_cast<WrTone*>(session); }

@@ -71,7 +71,7 @@ def main() -> None:
         ],
     }
 
-    from webradio_tpu.app import RadioApp
+    from webradio.app import RadioApp
 
     app = RadioApp(config)
     assert app.start(), "app failed to start"

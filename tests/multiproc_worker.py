@@ -30,7 +30,7 @@ def main() -> None:
     except Exception:
         pass
 
-    from webradio_tpu.parallel.multihost import (
+    from webradio.parallel.multihost import (
         init_distributed,
         host_time_slice,
         make_global_block,
@@ -44,11 +44,11 @@ def main() -> None:
     import jax.numpy as jnp
     from jax.experimental import multihost_utils
 
-    from webradio_tpu.parallel import make_mesh
-    from webradio_tpu.parallel.sharded_channelized import (
+    from webradio.parallel import make_mesh
+    from webradio.parallel.sharded_channelized import (
         sharded_channelized_step,
     )
-    from webradio_tpu.pipeline.channelized import (
+    from webradio.pipeline.channelized import (
         ChannelizedConfig,
         channelized_step,
         init_channelized_state,

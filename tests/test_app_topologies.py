@@ -6,14 +6,14 @@ import time
 
 import numpy as np
 
-from webradio_tpu.radio import Radio
-from webradio_tpu.web.audiostream import AudioStreamManager
+from webradio.radio import Radio
+from webradio.web.audiostream import AudioStreamManager
 from test_web import request
 
 
 def test_channelized_engine_live(tmp_path):
     """A front end with engine=channelized serves audio end-to-end."""
-    from webradio_tpu.app import RadioApp
+    from webradio.app import RadioApp
 
     Radio.reset()
     AudioStreamManager.reset()
@@ -69,7 +69,7 @@ def test_channelized_engine_live(tmp_path):
 def test_multi_tuner_topology():
     """Two tuners, receivers on each — the M-tuners/N-receivers shape the
     reference architecture supports but never ships (README:8-10)."""
-    from webradio_tpu.app import RadioApp
+    from webradio.app import RadioApp
 
     Radio.reset()
     AudioStreamManager.reset()
@@ -115,7 +115,7 @@ def test_multi_tuner_topology():
 def test_sharded_engine_live():
     """engine=sharded serves audio end-to-end over the virtual 8-device
     (time, chan) mesh — the whole production serving path, sharded."""
-    from webradio_tpu.app import RadioApp
+    from webradio.app import RadioApp
 
     Radio.reset()
     AudioStreamManager.reset()
@@ -141,7 +141,7 @@ def test_sharded_engine_live():
         while a.front_ends[0].block_count < 3 and time.time() < deadline:
             time.sleep(0.05)
         assert a.front_ends[0].block_count >= 3
-        from webradio_tpu.parallel.sharded_channelized import (
+        from webradio.parallel.sharded_channelized import (
             ShardedChannelizedFrontEnd,
         )
 
@@ -183,8 +183,8 @@ def test_receiver_audio_sink_file_route(tmp_path):
     PulseAudioSink seam) receives demodulated audio from the pump. The
     file: variant exercises the binding headlessly; "pulse" degrades to
     a warning when libpulse is absent."""
-    from webradio_tpu.app import RadioApp
-    from webradio_tpu.io.soundcard import pulse_available
+    from webradio.app import RadioApp
+    from webradio.io.soundcard import pulse_available
 
     Radio.reset()
     AudioStreamManager.reset()
@@ -242,8 +242,8 @@ def test_unwatched_receivers_never_fetch_audio(monkeypatch, tmp_path):
     67-68, applied at the device boundary): with no stream consumers and
     no local sink, zero per-row fetches happen; opening a stream starts
     them; closing it stops them again."""
-    import webradio_tpu.radio as radio_mod
-    from webradio_tpu.app import RadioApp
+    import webradio.radio as radio_mod
+    from webradio.app import RadioApp
 
     Radio.reset()
     AudioStreamManager.reset()
@@ -306,11 +306,10 @@ def test_unwatched_receivers_never_fetch_audio(monkeypatch, tmp_path):
 
 
 def test_hardware_driver_defaults_to_u8exact_filterbank():
-    """Hardware tuners (8-bit sample sources) default the filterbank to
-    the u8exact law — reference-quality arithmetic at a third of the
-    MXU passes — while synthetic float32 sources keep the universal
-    float32-exact tier."""
-    from webradio_tpu.app import RadioApp
+    """Every tuner, hardware (8-bit samples) or synthetic, defaults the
+    filterbank to the float32 "highest" tier (the split-weight u8exact
+    law was a matrix-unit trade of the first target and is gone)."""
+    from webradio.app import RadioApp
 
     Radio.reset()
     AudioStreamManager.reset()
@@ -330,7 +329,7 @@ def test_hardware_driver_defaults_to_u8exact_filterbank():
     try:
         a.build()
         assert a.front_ends[0].pfb_precision == "highest"
-        assert a.front_ends[1].pfb_precision == "u8exact"
+        assert a.front_ends[1].pfb_precision == "highest"
     finally:
         a.close()
         Radio.reset()
@@ -342,7 +341,7 @@ def test_overload_backstop_forces_synchronization():
     (dispatch->completion latency > OVERLOAD_BLOCKS blocks), the next
     pump iteration forces one synchronizing fetch and counts the event —
     the bounded-queue backstop for the zero-fetch serving path."""
-    from webradio_tpu.app import RadioApp
+    from webradio.app import RadioApp
 
     Radio.reset()
     AudioStreamManager.reset()

@@ -12,7 +12,7 @@ import time
 
 import numpy as np
 
-from webradio_tpu.web.audiostream import (
+from webradio.web.audiostream import (
     AudioStreamManager,
     CONSUMER_DEPTH,
 )

@@ -6,7 +6,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from webradio_tpu.ops.channelizer import (
+from webradio.ops.channelizer import (
     assign_bins,
     bin_weights,
     design_prototype,
@@ -14,9 +14,9 @@ from webradio_tpu.ops.channelizer import (
     pfb_channelize,
     select_bins,
 )
-from webradio_tpu.pipeline import ChainConfig, init_state, make_receiver_params
-from webradio_tpu.pipeline.frontend import frontend_step
-from webradio_tpu.pipeline.channelized import (
+from webradio.pipeline import ChainConfig, init_state, make_receiver_params
+from webradio.pipeline.frontend import frontend_step
+from webradio.pipeline.channelized import (
     ChannelizedConfig,
     channelized_step,
     init_channelized_state,
@@ -175,8 +175,9 @@ class TestChannelizedStep:
         np.testing.assert_allclose(full, split, atol=1e-5)
 
     def test_op_surface_clean(self):
-        """The channelized step must stay inside the restricted TPU op
-        surface (no fft/conv/gather/scatter/atan2/complex/dynamic-slice)."""
+        """The channelized step stays inside the framework's op surface
+        (no fft/conv/gather/scatter/atan2/complex/dynamic-slice; see
+        test_op_surface.py)."""
         cfg = ChannelizedConfig(num_channels=8, block_frames=12_800)
         params = make_channelized_params(
             cfg, [i * 7_000 for i in range(8)], 80_000, 8_000, "FM"
@@ -197,8 +198,8 @@ class TestShardedChannelized:
     def test_matches_single_chip(self):
         """(time=2, chan=4) mesh reproduces the single-chip channelized
         step within float tolerance, across two carried blocks."""
-        from webradio_tpu.parallel import make_mesh
-        from webradio_tpu.parallel.sharded_channelized import (
+        from webradio.parallel import make_mesh
+        from webradio.parallel.sharded_channelized import (
             ShardedChannelizedFrontEnd,
         )
 
@@ -243,14 +244,15 @@ class TestShardedChannelized:
             )
 
 
-def test_tail_kernel_step_parity(rng):
-    """channelized_step with tail_kernel="pallas" matches "xla" (both on
-    the quantized NCO) and carries interchangeable state."""
-    from webradio_tpu.ops.pallas_tail_tm import TIME_TILE, CHAN_TILE
+@pytest.mark.parametrize("fast", [False, True], ids=["table_lo", "fast_lo"])
+def test_tail_kernel_step_parity(rng, interpret_kernel, fast):
+    """channelized_step with tail_kernel="pallas" (the fused kernel, in
+    interpret mode here) matches "xla" and carries interchangeable
+    state, for both LO laws."""
+    from webradio.ops.pallas_tail_tm import BLOCK_C
 
-    c = CHAN_TILE
-    bf = 10 * TIME_TILE * 5  # nd = 5*TIME_TILE; multiple of bins*audio_decim
-    base = dict(num_channels=c, block_frames=bf, fast_nco=False)
+    c, bf = 2 * BLOCK_C, 12_800
+    base = dict(num_channels=c, block_frames=bf, fast_nco=fast)
     cfg_x = ChannelizedConfig(**base, tail_kernel="xla")
     cfg_p = ChannelizedConfig(**base, tail_kernel="pallas")
     ifs = [((i % 16) - 8) * 100_000 + 777 for i in range(c)]
@@ -259,22 +261,16 @@ def test_tail_kernel_step_parity(rng):
     z = (rng.standard_normal(bf) + 1j * rng.standard_normal(bf)).astype(
         np.complex64
     )
-    cfg_f = ChannelizedConfig(**base, tail_kernel="pallas_pfb")
     s_x = init_channelized_state(cfg_x)
     s_p = init_channelized_state(cfg_p)
-    s_f = init_channelized_state(cfg_f)
     # two blocks so the mixed-domain history carry crosses the boundary
     for _ in range(2):
         s_x, a_x, _ = channelized_step(cfg_x, params, s_x, planes(z))
         s_p, a_p, _ = channelized_step(cfg_p, params, s_p, planes(z))
-        s_f, a_f, _ = channelized_step(cfg_f, params, s_f, planes(z))
+    assert interpret_kernel, "the pallas tail never reached the kernel"
     np.testing.assert_allclose(np.asarray(a_p), np.asarray(a_x), atol=1e-5)
-    np.testing.assert_allclose(np.asarray(a_f), np.asarray(a_x), atol=1e-5)
     for f_x, f_p in zip(s_x, s_p):
         np.testing.assert_allclose(np.asarray(f_p), np.asarray(f_x),
-                                   atol=3e-6)
-    for f_x, f_f in zip(s_x, s_f):
-        np.testing.assert_allclose(np.asarray(f_f), np.asarray(f_x),
                                    atol=3e-6)
 
 
@@ -284,7 +280,7 @@ def test_mixed_bandwidth_structure_switch(rng):
     must produce consistent audio for the channels whose settings did not
     change."""
     import jax.numpy as jnp
-    from webradio_tpu.pipeline.channelized import (
+    from webradio.pipeline.channelized import (
         ChannelizedConfig,
         channelized_step,
         init_channelized_state,
@@ -320,7 +316,7 @@ def test_short_tile_config_falls_back(rng):
     run through the per-channel FIR — regression for a negative-pad crash
     found in review."""
     import jax.numpy as jnp
-    from webradio_tpu.pipeline.channelized import (
+    from webradio.pipeline.channelized import (
         ChannelizedConfig,
         channelized_step,
         init_channelized_state,
@@ -343,134 +339,13 @@ def test_short_tile_config_falls_back(rng):
     assert np.isfinite(np.asarray(audio)).all()
 
 
-def test_u8exact_pfb_matches_highest_on_u8_input(rng):
-    """The 2-pass split-weight filterbank law has zero bf16 product
-    error whenever the input is 8-bit-sourced (the (x-128)/128 grid
-    every RTL2832U sample lives on): on that grid it equals the HIGHEST
-    product to float32 accumulation rounding (~1e-6 — summation order
-    differs); on arbitrary float32 input it additionally rounds the
-    frames to bf16."""
-    from webradio_tpu.ops.channelizer import (
-        bin_weights_for_channels,
-        design_prototype,
-        pfb_channelize_direct_tm,
-    )
-    import jax
-    import jax.numpy as jnp
-
-    nbins, tpp, c = 8, 16, 16
-    kp = nbins * tpp
-    proto = design_prototype(1_024_000, nbins, tpp)
-    w = jnp.asarray(bin_weights_for_channels(
-        proto, nbins, (np.arange(c) % nbins).astype(np.int32)))
-    hist = jnp.zeros((2, kp - 1), jnp.float32)
-
-    from webradio_tpu.ops.channelizer import (
-        pfb_channelize_direct_tm_u8,
-        split_weights_u8,
-    )
-
-    # u8 ADC grid: (x - 128) / 128, exactly bf16-representable
-    raw = rng.integers(0, 256, (2, 4096)).astype(np.float32)
-    x = jnp.asarray((raw - 128.0) / 128.0)
-    hi_i, hi_q, _ = pfb_channelize_direct_tm(
-        x, w, nbins, hist, precision=jax.lax.Precision.HIGHEST)
-    u8_i, u8_q, _ = pfb_channelize_direct_tm_u8(
-        x, split_weights_u8(np.asarray(w)), nbins, hist)
-    # the split-weight sum reassembles the exact weights; the two f32
-    # accumulations differ only in summation order
-    np.testing.assert_allclose(np.asarray(u8_i), np.asarray(hi_i),
-                               atol=4e-6)
-    np.testing.assert_allclose(np.asarray(u8_q), np.asarray(hi_q),
-                               atol=4e-6)
-
-    # the config knob validates and threads through the step
-    from webradio_tpu.pipeline.channelized import ChannelizedConfig
-
-    cfg = ChannelizedConfig(
-        sample_rate=1_024_000, channel_rate=128_000, audio_rate=32_000,
-        block_frames=8_192, num_channels=16, pfb_precision="u8exact")
-    assert cfg.pfb_precision == "u8exact"
-    with pytest.raises(ValueError):
-        ChannelizedConfig(
-            sample_rate=1_024_000, channel_rate=128_000,
-            audio_rate=32_000, block_frames=8_192, num_channels=16,
-            pfb_precision="u8exact", tail_kernel="pallas_pfb")
-
-
-def test_u8exact_step_matches_highest_on_u8_input(rng):
-    """channelized_step at pfb_precision="u8exact" == "highest" (to f32
-    rounding) on 8-bit-grid input, through the whole chain with carried
-    state. The params carry the host-split weights; on TPU the step
-    routes them through the 2-pass MXU law (pfb_channelize_direct_tm_u8,
-    parity-tested directly above), off-TPU it falls back to the native
-    f32 product — either way this pins the routing and the audio."""
-    base = dict(sample_rate=1_024_000, channel_rate=128_000,
-                audio_rate=32_000, block_frames=8_192, num_channels=8)
-    cfg_h = ChannelizedConfig(**base, pfb_precision="highest")
-    cfg_u = ChannelizedConfig(**base, pfb_precision="u8exact")
-    ifs = [((i % 8) - 4) * 100_000 + 777 for i in range(8)]
-    p_h = make_channelized_params(cfg_h, ifs, 80_000, 8_000, "FM")
-    p_u = make_channelized_params(cfg_u, ifs, 80_000, 8_000, "FM")
-    assert p_u.pfb_weights_split is not None
-    assert p_h.pfb_weights_split is None
-
-    raw = rng.integers(0, 256, (2, 2 * 8_192)).astype(np.float32)
-    x = jnp.asarray((raw - 128.0) / 128.0)
-    s_h = init_channelized_state(cfg_h)
-    s_u = init_channelized_state(cfg_u)
-    for i in range(2):
-        blk = x[:, i * 8_192:(i + 1) * 8_192]
-        s_h, a_h, _ = channelized_step(cfg_h, p_h, s_h, blk)
-        s_u, a_u, _ = channelized_step(cfg_u, p_u, s_u, blk)
-        np.testing.assert_allclose(np.asarray(a_u), np.asarray(a_h),
-                                   atol=2e-4)
-
-
-def test_u8exact_channel_shard_slices(rng):
-    """The split-weight tensor's channel axis (axis 3) slices into valid
-    per-shard operands — the invariant the sharded spec
-    P(None, None, None, "chan") relies on: running the u8 product on a
-    contiguous half of the channels equals the corresponding output
-    columns of the full product. (A [.., 2C]-packed layout broke this:
-    contiguous shards then received all-I / all-Q column blocks.)"""
-    from webradio_tpu.ops.channelizer import (
-        bin_weights_for_channels,
-        design_prototype,
-        pfb_channelize_direct_tm_u8,
-        split_weights_u8,
-    )
-
-    nbins, tpp, c = 8, 16, 16
-    kp = nbins * tpp
-    proto = design_prototype(1_024_000, nbins, tpp)
-    w = bin_weights_for_channels(
-        proto, nbins, (np.arange(c) % nbins).astype(np.int32))
-    ws = split_weights_u8(w)
-    assert ws.shape == (2, 2 * kp, 2, c)
-    hist = jnp.zeros((2, kp - 1), jnp.float32)
-    raw = rng.integers(0, 256, (2, 4096)).astype(np.float32)
-    x = jnp.asarray((raw - 128.0) / 128.0)
-
-    fi, fq, _ = pfb_channelize_direct_tm_u8(x, ws, nbins, hist)
-    for lo, hi in ((0, c // 2), (c // 2, c)):
-        si, sq, _ = pfb_channelize_direct_tm_u8(
-            x, ws[:, :, :, lo:hi], nbins, hist)
-        # rounding-near (gemm blocking differs across output widths);
-        # the broken packed layout produced O(1) garbage here
-        np.testing.assert_allclose(np.asarray(si),
-                                   np.asarray(fi)[:, lo:hi], atol=2e-6)
-        np.testing.assert_allclose(np.asarray(sq),
-                                   np.asarray(fq)[:, lo:hi], atol=2e-6)
-
-
-def test_bf16_product_tier(rng):
-    """pfb_precision="bf16": the one-bf16-pass product STORED bfloat16
-    (half the packed product's HBM footprint — the r5 throughput tier).
-    Pins (a) the Pallas and XLA tails agree exactly at this tier, and
-    (b) the storage rounding costs only a bounded SNR step vs the
-    "default" tier (same arithmetic, f32 storage)."""
-    from webradio_tpu.pipeline.channelized import (
+def test_bf16_product_tier(rng, interpret_kernel):
+    """pfb_precision="bf16": the "default" product STORED bfloat16 (half
+    the packed product's memory traffic). Pins (a) the fused kernel and
+    the XLA tail agree at this tier, and (b) the storage rounding costs
+    only a bounded SNR step vs the "default" tier (same arithmetic, f32
+    storage)."""
+    from webradio.pipeline.channelized import (
         ChannelizedConfig,
         channelized_step,
         init_channelized_state,
@@ -479,11 +354,11 @@ def test_bf16_product_tier(rng):
     )
 
     fs, cr, ar, bf = 1_024_000, 128_000, 32_000, 10_240
-    c = 512  # Pallas-eligible width (interpret mode on CPU)
+    c = 512
     ifs = [(i - c // 2) * 1_000 for i in range(c)]
     x = jnp.asarray(rng.standard_normal((2, bf)).astype(np.float32))
     outs = {}
-    for pp, tail in (("default", "auto"), ("bf16", "auto"),
+    for pp, tail in (("default", "xla"), ("bf16", "pallas"),
                      ("bf16", "xla")):
         cfg = ChannelizedConfig(sample_rate=fs, channel_rate=cr,
                                 audio_rate=ar, block_frames=bf,
@@ -494,18 +369,80 @@ def test_bf16_product_tier(rng):
             cfg, params, init_channelized_state(cfg), x,
             mode_set=mode_set_of(params.mode))
         outs[(pp, tail)] = np.asarray(audio, np.float64)
-    # tails agree exactly on the same stored product
-    np.testing.assert_array_equal(outs[("bf16", "auto")],
-                                  outs[("bf16", "xla")])
-    err = outs[("bf16", "auto")] - outs[("default", "auto")]
-    snr = 10 * np.log10(np.mean(outs[("default", "auto")] ** 2)
+    assert interpret_kernel
+    # both tails on the same stored product
+    np.testing.assert_allclose(outs[("bf16", "pallas")],
+                               outs[("bf16", "xla")], atol=1e-5)
+    err = outs[("bf16", "xla")] - outs[("default", "xla")]
+    snr = 10 * np.log10(np.mean(outs[("default", "xla")] ** 2)
                         / max(np.mean(err ** 2), 1e-300))
     assert snr > 30, f"bf16 product storage SNR collapsed: {snr:.1f} dB"
 
 
-def test_bf16_rejected_for_pallas_pfb():
-    from webradio_tpu.pipeline.channelized import ChannelizedConfig
+@pytest.mark.parametrize(
+    "field,name",
+    [("pfb_precision", "u8exact"), ("pfb_precision", "high"),
+     ("fir_precision", "hx5"), ("fir_precision", "hx4"),
+     ("tail_kernel", "pallas_pfb")],
+)
+def test_removed_tier_names_are_rejected(field, name):
+    """Tiers and kernels that no longer exist fail loudly, naming the
+    ones that remain."""
+    with pytest.raises(ValueError, match="must be one of"):
+        ChannelizedConfig(num_channels=64, **{field: name})
 
-    with pytest.raises(ValueError):
-        ChannelizedConfig(num_channels=512, pfb_precision="bf16",
-                          tail_kernel="pallas_pfb")
+
+def test_removed_tier_names_are_rejected_by_the_front_end():
+    from webradio.io.tuner import ToneTuner
+    from webradio.radio import FrontEnd
+
+    for kw in ({"pfb_precision": "u8exact"}, {"fir_precision": "hx4"}):
+        with pytest.raises(ValueError, match="must be one of"):
+            FrontEnd(ToneTuner(), engine="direct", **kw)
+
+
+def _choice_params(cfg):
+    ifs = [i * 1_000 for i in range(cfg.num_channels)]
+    return make_channelized_params(cfg, ifs, 80_000, 8_000, "FM")
+
+
+@pytest.mark.parametrize(
+    "tail,c,backend,expect",
+    [
+        ("auto", 512, "gpu", True),     # at the threshold
+        ("auto", 256, "gpu", False),    # below it: the XLA tail
+        ("auto", 512, "cpu", False),    # no card: never the kernel
+        ("xla", 512, "gpu", False),
+        ("pallas", 64, "cpu", True),    # explicit: wherever shapes fit
+    ],
+)
+def test_fused_tail_choice(tail, c, backend, expect, monkeypatch):
+    from webradio.pipeline import channelized as ch
+
+    monkeypatch.setattr(ch, "FUSED_TAIL_AUTO_THRESHOLD", 512)
+    cfg = ChannelizedConfig(num_channels=c, block_frames=25_600,
+                            tail_kernel=tail)
+    params = _choice_params(cfg)
+    assert ch._use_fused_tail(cfg, cfg.chan_frames, c, params,
+                              backend=backend) is expect
+
+
+@pytest.mark.parametrize(
+    "kw",
+    [
+        dict(num_channels=40),                       # not whole tiles
+        dict(num_channels=64, block_frames=6_400,    # factored LO split
+             fft_size=128),
+        dict(num_channels=64, block_frames=2_560,    # not whole audio tiles
+             sample_rate=1_024_000, channel_rate=128_000, audio_rate=32_000),
+    ],
+    ids=["channels", "lo_split", "time"],
+)
+def test_unfit_shapes_fall_back_to_xla(kw):
+    from webradio.pipeline import channelized as ch
+
+    cfg = ChannelizedConfig(tail_kernel="pallas", **{"block_frames": 25_600,
+                                                     **kw})
+    params = _choice_params(cfg)
+    assert not ch._use_fused_tail(cfg, cfg.chan_frames, cfg.num_channels,
+                                  params, backend="gpu")

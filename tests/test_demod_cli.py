@@ -1,8 +1,21 @@
 """Offline demodulation CLI: capture in, audio files out."""
 
 import numpy as np
+import pytest
 
-from webradio_tpu.demod_cli import main
+from webradio import runtime
+from webradio.demod_cli import main
+
+
+@pytest.fixture(autouse=True)
+def _no_persistent_cache(monkeypatch):
+    """main() turns the persistent compile cache on for its process; keep
+    this test process's compiles (which other tests time) uncached."""
+    calls = []
+    monkeypatch.setattr(runtime, "configure_compile_cache",
+                        lambda: calls.append(1))
+    yield
+    assert calls, "the CLI no longer configures the compile cache"
 
 
 def test_cli_two_receivers(tmp_path, capsys):

@@ -15,7 +15,7 @@ import ctypes
 import numpy as np
 import pytest
 
-from webradio_tpu.web import encoders
+from webradio.web import encoders
 
 pytestmark = pytest.mark.skipif(
     not encoders.lame_available(), reason="libmp3lame not available"

@@ -14,9 +14,9 @@ import pathlib
 import numpy as np
 import pytest
 
-from webradio_tpu.app import RadioApp
-from webradio_tpu.radio import Radio
-from webradio_tpu.web.audiostream import AudioStreamManager
+from webradio.app import RadioApp
+from webradio.radio import Radio
+from webradio.web.audiostream import AudioStreamManager
 
 EXAMPLES = sorted(
     (pathlib.Path(__file__).parent.parent / "examples").glob("*.json")
@@ -38,10 +38,9 @@ def test_example_topology_builds(path, tmp_path):
     try:
         app.build()
         assert app.front_ends, path.name
-        # hardware drivers default to the u8exact filterbank tier
+        # every tuner defaults to the float32 filterbank tier
         for t, fe in zip(cfg["tuners"], app.front_ends):
-            if t.get("driver") in ("rtlsdr", "rtltcp"):
-                assert fe.pfb_precision == "u8exact"
+            assert fe.pfb_precision == t.get("pfb_precision", "highest")
     finally:
         app.close()
         Radio.reset()

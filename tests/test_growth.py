@@ -16,18 +16,18 @@ import numpy as np
 import pytest
 
 from conftest import make_iq
-from webradio_tpu.pipeline import (
+from webradio.pipeline import (
     ChainConfig,
     FrontEndPipeline,
     make_receiver_params,
 )
-from webradio_tpu.pipeline.channelized import (
+from webradio.pipeline.channelized import (
     ChannelizedConfig,
     ChannelizedPipeline,
     grow_channelized_state,
     make_channelized_params,
 )
-from webradio_tpu.pipeline.state import grow_state
+from webradio.pipeline.state import grow_state
 
 FS, CR, AR, BF = 1_024_000, 128_000, 32_000, 8_192
 IFS = [10_000, -25_000]
@@ -122,7 +122,7 @@ class TestStateMigration:
     def test_grow_rejects_shrink(self):
         cfg = ChainConfig(sample_rate=FS, channel_rate=CR, audio_rate=AR,
                           block_frames=BF, num_channels=4)
-        from webradio_tpu.pipeline.state import init_state
+        from webradio.pipeline.state import init_state
 
         with pytest.raises(ValueError):
             grow_state(init_state(cfg), 2)
@@ -147,9 +147,9 @@ def test_live_growth_drops_no_blocks():
     """POST /receivers past capacity: the pump keeps serving the old width
     while the doubled pipeline compiles; zero ring drops; audio flows for
     both old and new receivers after the swap."""
-    from webradio_tpu.app import RadioApp
-    from webradio_tpu.radio import Radio
-    from webradio_tpu.web.audiostream import AudioStreamManager
+    from webradio.app import RadioApp
+    from webradio.radio import Radio
+    from webradio.web.audiostream import AudioStreamManager
 
     Radio.reset()
     AudioStreamManager.reset()

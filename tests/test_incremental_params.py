@@ -11,10 +11,10 @@ structure-changing writes (bandwidth divergence) still fall back.
 
 import numpy as np
 
-from webradio_tpu.radio import FrontEnd, Radio, Receiver
-from webradio_tpu.io.tuner import ToneTuner
-from webradio_tpu.pipeline import ChainConfig
-from webradio_tpu.pipeline.channelized import ChannelizedPipeline
+from webradio.radio import FrontEnd, Radio, Receiver
+from webradio.io.tuner import ToneTuner
+from webradio.pipeline import ChainConfig
+from webradio.pipeline.channelized import ChannelizedPipeline
 
 
 def _mk_frontend(capacity=32):

@@ -17,8 +17,8 @@ import time
 
 import numpy as np
 
-from webradio_tpu.ops.demod import MODES
-from webradio_tpu.pipeline.channelized import (
+from webradio.ops.demod import MODES
+from webradio.pipeline.channelized import (
     ChannelizedConfig,
     ChannelizedPipeline,
     make_channelized_params,
@@ -117,9 +117,9 @@ def test_live_mode_switch_drops_no_blocks():
     /status exposes the in-flight warm, the new law is eventually
     adopted, and audio keeps flowing throughout (the reference's free
     live setter, demodulator.h:49, minus the data races)."""
-    from webradio_tpu.app import RadioApp
-    from webradio_tpu.radio import Radio
-    from webradio_tpu.web.audiostream import AudioStreamManager
+    from webradio.app import RadioApp
+    from webradio.radio import Radio
+    from webradio.web.audiostream import AudioStreamManager
 
     Radio.reset()
     AudioStreamManager.reset()
@@ -134,7 +134,7 @@ def test_live_mode_switch_drops_no_blocks():
             # double the ring's stall tolerance: on THIS 2-core CI box
             # the background compile contends with the virtual-CPU
             # devices for the pump's own compute (a regime the real
-            # deployment never sees — TPU steps run on the device while
+            # deployment never sees — device steps run on the GPU while
             # the compile runs on host cores).
             "block_frames": 2 * BF, "capacity": 20,
             "engine": "channelized",

@@ -45,7 +45,7 @@ def _req(port, method, path, body=None):
 
 
 def test_multihost_degenerate_single_process():
-    from webradio_tpu.app import RadioApp
+    from webradio.app import RadioApp
 
     config = {
         "server": {"port": 0, "host": "127.0.0.1", "html": "html"},
@@ -121,7 +121,7 @@ def test_multihost_post_past_capacity_409():
     running (VERDICT r4 #5: growth's background warm would execute
     collectives off the lockstep schedule, so it is formally rejected
     rather than left to deadlock the slice)."""
-    from webradio_tpu.app import RadioApp
+    from webradio.app import RadioApp
 
     config = {
         "server": {"port": 0, "host": "127.0.0.1", "html": "html"},
@@ -163,7 +163,7 @@ def test_multihost_post_past_capacity_409():
         assert len(fe.receivers) == 4
 
         # one past capacity: 409 with a machine-readable body
-        from webradio_tpu.radio import Radio
+        from webradio.radio import Radio
 
         known = set(Radio.receivers)
         st, body = _req(

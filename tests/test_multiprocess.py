@@ -3,7 +3,7 @@
 SURVEY §4 planned multi-device coverage via the virtual-device trick and
 left multi-HOST paths to real slices; this goes further: two actual
 processes bring up `jax.distributed` (Gloo over localhost), each ingests
-only its own time slice of the capture (webradio_tpu.parallel.multihost),
+only its own time slice of the capture (webradio.parallel.multihost),
 and the sharded channelized step's gathered audio must match a
 single-device run. Exercises: distributed init, cross-process global
 array assembly, process-spanning collectives (the time-halo ppermutes and

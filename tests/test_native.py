@@ -7,7 +7,7 @@ the toolchain is genuinely unavailable.
 import numpy as np
 import pytest
 
-from webradio_tpu.io import native
+from webradio.io import native
 
 pytestmark = pytest.mark.skipif(
     not native.available(), reason="native toolchain unavailable"
@@ -50,6 +50,50 @@ def test_ring_close_unblocks():
     r = native.NativeRing(8)
     r.close()
     assert r.pop(1.0) is None
+
+
+def test_tone_close_while_popping_is_safe():
+    """close() from another thread wakes a blocked pop, frees the session
+    only after it returned, and later pops return None (no use after
+    free of the native session)."""
+    import threading
+    import time
+
+    # one block per 2 s: the pop below blocks until close wakes it
+    tone = native.NativeTone(1_000, 2_000, [(0.0, "AM", 100.0)])
+    got = []
+    popper = threading.Thread(target=lambda: got.append(tone.pop(30.0)))
+    popper.start()
+    time.sleep(0.2)
+    t0 = time.monotonic()
+    tone.close()
+    popper.join(timeout=5.0)
+    assert not popper.is_alive()
+    assert got == [None]
+    assert time.monotonic() - t0 < 5.0
+    assert tone.pop(0.1) is None
+    assert tone.dropped_blocks == 0
+    tone.close()  # idempotent
+
+
+def test_tone_source_stop_races_read_block():
+    """NativeToneSource.stop() while the capture thread sits in
+    read_block: the reader returns None, nothing crashes."""
+    import threading
+    import time
+
+    from webradio.io.source import NativeToneSource
+
+    src = NativeToneSource()
+    src.sample_rate, src.block_frames = 1_000, 2_000
+    assert src.start()
+    out = []
+    reader = threading.Thread(target=lambda: out.append(src.read_block()))
+    reader.start()
+    time.sleep(0.2)
+    src.stop()
+    reader.join(timeout=5.0)
+    assert not reader.is_alive() and out == [None]
 
 
 class _FakeRtlTcpServer:
@@ -96,7 +140,7 @@ class _FakeRtlTcpServer:
 
 
 def test_rtltcp_native_session_end_to_end():
-    from webradio_tpu.io.tuner import RtlTcpTuner
+    from webradio.io.tuner import RtlTcpTuner
 
     srv = _FakeRtlTcpServer()
     try:
@@ -128,7 +172,7 @@ def test_rtltcp_native_session_end_to_end():
 
 class TestSoundcard:
     def test_pulse_gated(self):
-        from webradio_tpu.io import soundcard
+        from webradio.io import soundcard
 
         # image has no sound stack: the driver must gate, not crash
         if not soundcard.pulse_available():
@@ -136,7 +180,7 @@ class TestSoundcard:
                 soundcard.PulseAudioSink()
 
     def test_file_sink_wav_roundtrip(self, tmp_path):
-        from webradio_tpu.io.soundcard import FileAudioSink
+        from webradio.io.soundcard import FileAudioSink
 
         p = tmp_path / "out.wav"
         sink = FileAudioSink(p, sample_rate=8_000)
@@ -159,7 +203,7 @@ class TestNativeTone:
     def test_matches_python_tone_source(self):
         import time
 
-        from webradio_tpu.io.source import NativeToneSource, ToneSource
+        from webradio.io.source import NativeToneSource, ToneSource
 
         if not hasattr(native.load(), "wr_tone_open"):
             pytest.skip("stale native library")
@@ -193,8 +237,8 @@ class TestNativeTone:
         assert sp[fm_band].max() > 0.1 * sp.max()
 
     def test_tone_tuner_prefers_native(self, monkeypatch):
-        from webradio_tpu.io.source import NativeToneSource, ToneSource
-        from webradio_tpu.io.tuner import ToneTuner
+        from webradio.io.source import NativeToneSource, ToneSource
+        from webradio.io.tuner import ToneTuner
 
         if not hasattr(native.load(), "wr_tone_open"):
             pytest.skip("stale native library")

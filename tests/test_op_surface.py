@@ -1,18 +1,19 @@
-"""Guard: the serving step must stay inside the restricted TPU op surface.
+"""Guard: the serving step stays inside the framework's small op surface.
 
-The serving backend lowers elementwise VPU math, static slices, reshapes,
-integer arithmetic, and MXU dot_generals — but NOT complex dtypes, fft,
-convolution, gather/scatter, or atan2 (probed empirically on the target
-chip). This test lowers the full serving step to StableHLO and fails if any
-forbidden op appears, so a regression is caught on CPU in CI rather than as
-an UNIMPLEMENTED runtime error on the device.
+The step is built from elementwise math, static slices, reshapes, integer
+arithmetic and dot_generals only — no complex dtypes, fft, convolution,
+gather/scatter, atan2 (the FM law is the shared software polynomial in
+``ops.trig``) or dynamic slicing. That keeps every stage a static-shape
+fusion XLA compiles alike on each backend, and keeps the XLA tail's FM law
+the one the fused GPU kernel evaluates. This test lowers the full serving
+step to StableHLO and fails if any forbidden op appears.
 """
 
 import jax
 import jax.numpy as jnp
 
-from webradio_tpu.pipeline import ChainConfig, init_state, make_receiver_params
-from webradio_tpu.pipeline.frontend import frontend_step_serving
+from webradio.pipeline import ChainConfig, init_state, make_receiver_params
+from webradio.pipeline.frontend import frontend_step_serving
 
 FORBIDDEN = (
     "stablehlo.fft",
@@ -46,10 +47,9 @@ def test_serving_step_op_surface():
 
 
 def test_sharded_step_op_surface():
-    """Same guard for the multi-chip path (minus collectives, which the
-    full TPU runtime provides)."""
-    from webradio_tpu.parallel import make_mesh
-    from webradio_tpu.parallel.sharded import sharded_frontend_step
+    """Same guard for the multi-device path (collectives allowed)."""
+    from webradio.parallel import make_mesh
+    from webradio.parallel.sharded import sharded_frontend_step
 
     cfg = ChainConfig(
         sample_rate=1_024_000,

@@ -9,8 +9,8 @@ import numpy as np
 import pytest
 import jax.numpy as jnp
 
-from webradio_tpu import ops
-from webradio_tpu import oracle
+from webradio import ops
+from webradio import oracle
 from conftest import make_iq, snr_db
 
 
@@ -46,7 +46,7 @@ class TestFirDesign:
         """Documented reference quirk (lowpass.cxx:167): integer-division
         cutoff truncates to bin 0 below 2*fs/N, yielding the all-zero
         filter — reproduced deliberately for parity."""
-        from webradio_tpu.ops.firdesign import design_lowpass_fir
+        from webradio.ops.firdesign import design_lowpass_fir
 
         coeff = design_lowpass_fir(4_000, 240_000)
         assert float(np.abs(coeff).max()) == 0.0
@@ -55,7 +55,7 @@ class TestFirDesign:
         """The quirk-free windowed-sinc design: unity DC gain, passband
         tone passes, stopband tone attenuated, at a passband where the
         reference design is identically zero."""
-        from webradio_tpu.ops.firdesign import design_lowpass_fir_sinc
+        from webradio.ops.firdesign import design_lowpass_fir_sinc
 
         fs = 240_000
         coeff = np.asarray(design_lowpass_fir_sinc(4_000, fs), np.float64)
@@ -70,7 +70,7 @@ class TestFirDesign:
         assert gain(30_000) < 0.05      # stopband
 
     def test_design_selector_cached(self):
-        from webradio_tpu.ops import firdesign
+        from webradio.ops import firdesign
 
         a = firdesign.design_lowpass_fir_cached(8_000, 240_000,
                                                 design="sinc")
@@ -275,7 +275,7 @@ class TestFirToeplitz:
                                    atol=0)
 
     def test_params_carry_toeplitz_only_when_shared(self):
-        from webradio_tpu.pipeline import ChainConfig, make_receiver_params
+        from webradio.pipeline import ChainConfig, make_receiver_params
 
         cfg = ChainConfig(num_channels=2, block_frames=12_800)
         shared = make_receiver_params(cfg, [0, 10_000], 80_000, 8_000, "FM")

@@ -1,331 +1,178 @@
-"""Parity test for the time-major fused Pallas tail (interpret mode on CPU).
+"""The fused GPU tail kernel (ops/pallas_tail_tm.py) against the XLA tail.
 
-The kernel is auto-selected by channelized_step at large channel counts
-(see ops/pallas_tail_tm.py's measured verdict); its semantics must stay
-bit-near the unfused chain it mirrors, including the mixed-domain
-history carry interchangeability.
+On the CPU the kernel runs in Pallas interpret mode with its dots at
+float32 HIGHEST, so it must match the unfused chain (nco mix -> Toeplitz
+shaping FIR -> demod -> decimating audio FIR) to float32 rounding,
+carries included. The compiled-for-the-card twin of these checks is
+``test_gpu_kernel.py`` (run on the GPU by chip_smoke.py).
 """
 
 import numpy as np
 import jax.numpy as jnp
+import pytest
 
-from webradio_tpu import ops
-from webradio_tpu.ops.pallas_tail_tm import fused_tail_tm, TIME_TILE, CHAN_TILE
+from webradio import ops
+from webradio.ops.nco import factored_block, nco_advance
+from webradio.ops.pallas_tail_tm import (
+    BLOCK_C,
+    NARROW_BLOCK_C,
+    TIME_TILE,
+    _band_matrix,
+    default_block_c,
+    fused_tail_audio_tm,
+    supported,
+)
 
-
-def test_matches_unfused_chain(rng):
-    nd, c, k = 2 * TIME_TILE, CHAN_TILE, 64
-    ci = jnp.asarray(rng.standard_normal((nd, c)).astype(np.float32))
-    cq = jnp.asarray(rng.standard_normal((nd, c)).astype(np.float32))
-    p0 = jnp.asarray(rng.integers(0, 2**31, c).astype(np.uint32))
-    st = jnp.asarray(rng.integers(0, 2**31, c).astype(np.uint32))
-    mode = jnp.asarray((np.arange(c) % 4).astype(np.int32))
-    hi = jnp.asarray(rng.standard_normal((k - 1, c)).astype(np.float32))
-    hq = jnp.asarray(rng.standard_normal((k - 1, c)).astype(np.float32))
-    prev = jnp.asarray(rng.standard_normal((2, c)).astype(np.float32))
-    coeff = np.asarray(ops.design_lowpass_fir(600_000, 2_400_000))
-    w = jnp.asarray(ops.toeplitz_weights(coeff, 1, 128))
-
-    mi, mq = ops.nco_mix_tm(ci, cq, p0, st)
-    x2 = jnp.concatenate([mi, mq], axis=1)
-    y2, nh2 = ops.fir_decimate_toeplitz_tm(
-        x2, w, 1, jnp.concatenate([hi, hq], axis=1))
-    ref_audio, ref_prev = ops.demodulate_tm(y2[:, :c], y2[:, c:], mode, prev)
-
-    audio, nhi, nhq, nprev, power = fused_tail_tm(
-        ci, cq, p0, st, w, mode, hi, hq, prev)
-
-    # packed mode addresses the [nd, 2C] product in place — bit-identical
-    y2in = jnp.concatenate([ci, cq], axis=1)
-    p_audio, p_nhi, p_nhq, p_nprev, p_power = fused_tail_tm(
-        y2in, y2in, p0, st, w, mode, hi, hq, prev, packed=True)
-    np.testing.assert_array_equal(np.asarray(p_audio), np.asarray(audio))
-    np.testing.assert_array_equal(np.asarray(p_nhi), np.asarray(nhi))
-    np.testing.assert_array_equal(np.asarray(p_nhq), np.asarray(nhq))
-    np.testing.assert_array_equal(np.asarray(p_nprev), np.asarray(nprev))
-    np.testing.assert_array_equal(np.asarray(p_power), np.asarray(power))
-
-    np.testing.assert_allclose(np.asarray(audio), np.asarray(ref_audio),
-                               atol=3e-6)
-    # in-kernel squelch power == post-shaping-FIR mean |y|^2 (the unified
-    # cross-engine gate basis)
-    ref_power = jnp.mean(y2[:, :c] ** 2 + y2[:, c:] ** 2, axis=0)
-    np.testing.assert_allclose(np.asarray(power), np.asarray(ref_power),
-                               rtol=1e-5)
-    # history carries are bit-identical (pure pass-through of mixed rows)
-    np.testing.assert_allclose(np.asarray(nhi), np.asarray(nh2[:, :c]),
-                               atol=0)
-    np.testing.assert_allclose(np.asarray(nhq), np.asarray(nh2[:, c:]),
-                               atol=0)
-    np.testing.assert_allclose(np.asarray(nprev), np.asarray(ref_prev),
-                               atol=1e-6)
+K, D = 64, 5
 
 
-def test_audio_fused_matches_unfused_chain(rng):
-    """fused_tail_audio_tm == fused_tail_tm + fir_decimate_toeplitz_tm,
-    including the audio-domain history carry across blocks."""
-    from webradio_tpu.ops.pallas_tail_tm import fused_tail_audio_tm
-
-    nd, c, k, d = 2560, CHAN_TILE, 64, 5
-    p0 = jnp.asarray(rng.integers(0, 2**31, c).astype(np.uint32))
-    st = jnp.asarray(rng.integers(0, 2**31, c).astype(np.uint32))
-    mode = jnp.asarray((np.arange(c) % 4).astype(np.int32))
+def _weights():
     coeff = np.asarray(ops.design_lowpass_fir(600_000, 2_400_000))
     w = jnp.asarray(ops.toeplitz_weights(coeff, 1, 128))
     acoeff = np.asarray(ops.design_lowpass_fir(8_000, 240_000))
-    wa = jnp.asarray(ops.toeplitz_weights(acoeff, d, 32))
-
-    hi = jnp.asarray(rng.standard_normal((k - 1, c)).astype(np.float32))
-    hq = jnp.asarray(rng.standard_normal((k - 1, c)).astype(np.float32))
-    prev = jnp.asarray(rng.standard_normal((2, c)).astype(np.float32))
-    ahist = jnp.asarray(rng.standard_normal((k - 1, c)).astype(np.float32))
-
-    f_hi, f_hq, f_prev, f_ahist = hi, hq, prev, ahist
-    r_hi, r_hq, r_prev, r_ahist = hi, hq, prev, ahist.copy()
-    for _ in range(2):  # two blocks: carries cross the boundary
-        ci = jnp.asarray(rng.standard_normal((nd, c)).astype(np.float32))
-        cq = jnp.asarray(rng.standard_normal((nd, c)).astype(np.float32))
-
-        mi, mq = ops.nco_mix_tm(ci, cq, p0, st)
-        x2 = jnp.concatenate([mi, mq], axis=1)
-        y2, nh2 = ops.fir_decimate_toeplitz_tm(
-            x2, w, 1, jnp.concatenate([r_hi, r_hq], axis=1))
-        r_hi, r_hq = nh2[:, :c], nh2[:, c:]
-        a_ref, r_prev = ops.demodulate_tm(y2[:, :c], y2[:, c:], mode, r_prev)
-        a48_ref, r_ahist = ops.fir_decimate_toeplitz_tm(a_ref, wa, d, r_ahist)
-
-        a48, f_hi, f_hq, f_prev, f_ahist, power = fused_tail_audio_tm(
-            ci, cq, p0, st, w, wa, d, mode, f_hi, f_hq, f_prev, f_ahist)
-
-        np.testing.assert_allclose(np.asarray(a48), np.asarray(a48_ref),
-                                   atol=3e-6)
-        # in-kernel squelch power == post-shaping-FIR mean |y|^2 (the
-        # unified cross-engine gate basis)
-        np.testing.assert_allclose(
-            np.asarray(power),
-            np.asarray(jnp.mean(y2[:, :c] ** 2 + y2[:, c:] ** 2, axis=0)),
-            rtol=1e-5)
-        np.testing.assert_allclose(np.asarray(f_ahist), np.asarray(r_ahist),
-                                   atol=3e-6)
-        np.testing.assert_allclose(np.asarray(f_hi), np.asarray(r_hi), atol=0)
-        np.testing.assert_allclose(np.asarray(f_hq), np.asarray(r_hq), atol=0)
-        np.testing.assert_allclose(np.asarray(f_prev), np.asarray(r_prev),
-                                   atol=1e-6)
+    wa = jnp.asarray(ops.toeplitz_weights(acoeff, D, 32))
+    return w, wa
 
 
-def _b128_factored_mix(ci, cq, phase0, step, b=128):
-    """The kernel's tile-anchored factored-phasor LO (FAST_LO_B=128),
-    evaluated globally — bit-equivalent because every tile start is a
-    multiple of B, so coarse/fine integer phases coincide exactly."""
-    from webradio_tpu.ops.nco import PHASE_MASK
-
-    nd = ci.shape[0]
-    a = -(-nd // b)
-    scale = np.float32(2.0 * np.pi / (1 << 31))
-    pmask = jnp.uint32(PHASE_MASK)
-    aidx = jnp.arange(a, dtype=jnp.uint32)
-    bidx = jnp.arange(b, dtype=jnp.uint32)
-    coarse = (phase0[None, :] + aidx[:, None] * (step[None, :] * jnp.uint32(b))) & pmask
-    fine = (bidx[:, None] * step[None, :]) & pmask
-    tc = coarse.astype(jnp.float32) * scale
-    tf = fine.astype(jnp.float32) * scale
-    sc, cc = jnp.sin(tc), jnp.cos(tc)
-    sf, cf = jnp.sin(tf), jnp.cos(tf)
-    cn = (cc[:, None, :] * cf[None, :, :] - sc[:, None, :] * sf[None, :, :])
-    sn = (sc[:, None, :] * cf[None, :, :] + cc[:, None, :] * sf[None, :, :])
-    cn = cn.reshape(a * b, -1)[:nd]
-    sn = sn.reshape(a * b, -1)[:nd]
-    return ci * cn + cq * sn, cq * cn - ci * sn
+def _carries(rng, c):
+    f = lambda *s: jnp.asarray(rng.standard_normal(s).astype(np.float32))
+    return f(K - 1, c), f(K - 1, c), f(2, c), f(K - 1, c)
 
 
-def test_fast_lo_matches_factored_chain(rng):
-    """fast=True kernel == the factored-phasor mix + unfused FIR/demod
-    (the cfg.fast_nco law, ops.nco.nco_mix_tm_fast semantics)."""
-    nd, c, k = 2 * TIME_TILE, CHAN_TILE, 64
-    ci = jnp.asarray(rng.standard_normal((nd, c)).astype(np.float32))
-    cq = jnp.asarray(rng.standard_normal((nd, c)).astype(np.float32))
-    p0 = jnp.asarray(rng.integers(0, 2**31, c).astype(np.uint32))
-    st = jnp.asarray(rng.integers(0, 2**31, c).astype(np.uint32))
-    mode = jnp.asarray((np.arange(c) % 4).astype(np.int32))
-    hi = jnp.asarray(rng.standard_normal((k - 1, c)).astype(np.float32))
-    hq = jnp.asarray(rng.standard_normal((k - 1, c)).astype(np.float32))
-    prev = jnp.asarray(rng.standard_normal((2, c)).astype(np.float32))
-    coeff = np.asarray(ops.design_lowpass_fir(600_000, 2_400_000))
-    w = jnp.asarray(ops.toeplitz_weights(coeff, 1, 128))
-
-    mi, mq = _b128_factored_mix(ci, cq, p0, st)
+def _xla_tail(ci, cq, phase, st, w, wa, mode, hi, hq, prev, ahist, fast):
+    """The unfused reference chain with its carries."""
+    c = ci.shape[1]
+    mix = ops.nco_mix_tm_fast if fast else ops.nco_mix_tm
+    mi, mq = mix(ci, cq, phase, st)
     x2 = jnp.concatenate([mi, mq], axis=1)
-    y2, nh2 = ops.fir_decimate_toeplitz_tm(
+    y2, nh = ops.fir_decimate_toeplitz_tm(
         x2, w, 1, jnp.concatenate([hi, hq], axis=1))
-    ref_audio, ref_prev = ops.demodulate_tm(y2[:, :c], y2[:, c:], mode, prev)
-
-    audio, nhi, nhq, nprev, _ = fused_tail_tm(
-        ci, cq, p0, st, w, mode, hi, hq, prev, fast=True)
-
-    np.testing.assert_allclose(np.asarray(audio), np.asarray(ref_audio),
-                               atol=3e-6)
-    # carries are rounding-near, not bit-identical: XLA fuses the
-    # reconstruction+mix chain into different FMA groupings in the two
-    # compilation contexts (the table law's simpler chain fuses alike)
-    np.testing.assert_allclose(np.asarray(nhi), np.asarray(nh2[:, :c]),
-                               atol=1e-6)
-    np.testing.assert_allclose(np.asarray(nhq), np.asarray(nh2[:, c:]),
-                               atol=1e-6)
-    np.testing.assert_allclose(np.asarray(nprev), np.asarray(ref_prev),
-                               atol=1e-6)
+    a, nprev = ops.demodulate_tm(y2[:, :c], y2[:, c:], mode, prev)
+    a48, nah = ops.fir_decimate_toeplitz_tm(a, wa, D, ahist)
+    power = jnp.mean(y2[:, :c] ** 2 + y2[:, c:] ** 2, axis=0)
+    return a48, nh[:, :c], nh[:, c:], nprev, nah, power
 
 
-def test_fast_lo_audio_variant_carried_blocks(rng):
-    """fast=True audio-fused kernel across two carried blocks vs the
-    factored mix + unfused chain (audio history crosses the boundary)."""
-    from webradio_tpu.ops.pallas_tail_tm import fused_tail_audio_tm
-
-    nd, c, k, d = 2560, CHAN_TILE, 64, 5
+@pytest.mark.parametrize("packed", [False, True], ids=["planes", "packed"])
+@pytest.mark.parametrize("fast", [False, True], ids=["table_lo", "fast_lo"])
+def test_matches_xla_tail_across_carried_blocks(rng, fast, packed):
+    """All four laws (mixed per lane), two blocks whose every carry —
+    mixed FIR history, FM lag, audio history — crosses the boundary."""
+    nd, c = 2560, 2 * BLOCK_C
     p0 = jnp.asarray(rng.integers(0, 2**31, c).astype(np.uint32))
     st = jnp.asarray(rng.integers(0, 2**31, c).astype(np.uint32))
     mode = jnp.asarray((np.arange(c) % 4).astype(np.int32))
-    coeff = np.asarray(ops.design_lowpass_fir(600_000, 2_400_000))
-    w = jnp.asarray(ops.toeplitz_weights(coeff, 1, 128))
-    acoeff = np.asarray(ops.design_lowpass_fir(8_000, 240_000))
-    wa = jnp.asarray(ops.toeplitz_weights(acoeff, d, 32))
-
-    hi = jnp.asarray(rng.standard_normal((k - 1, c)).astype(np.float32))
-    hq = jnp.asarray(rng.standard_normal((k - 1, c)).astype(np.float32))
-    prev = jnp.asarray(rng.standard_normal((2, c)).astype(np.float32))
-    ahist = jnp.asarray(rng.standard_normal((k - 1, c)).astype(np.float32))
-
-    f_hi, f_hq, f_prev, f_ahist = hi, hq, prev, ahist
-    r_hi, r_hq, r_prev, r_ahist = hi, hq, prev, ahist
+    w, wa = _weights()
+    ref = _carries(rng, c)
+    got = ref
     phase = p0
-    from webradio_tpu.ops.nco import nco_advance
     for _ in range(2):
         ci = jnp.asarray(rng.standard_normal((nd, c)).astype(np.float32))
         cq = jnp.asarray(rng.standard_normal((nd, c)).astype(np.float32))
-
-        mi, mq = _b128_factored_mix(ci, cq, phase, st)
-        x2 = jnp.concatenate([mi, mq], axis=1)
-        y2, nh2 = ops.fir_decimate_toeplitz_tm(
-            x2, w, 1, jnp.concatenate([r_hi, r_hq], axis=1))
-        r_hi, r_hq = nh2[:, :c], nh2[:, c:]
-        a_ref, r_prev = ops.demodulate_tm(y2[:, :c], y2[:, c:], mode, r_prev)
-        a48_ref, r_ahist = ops.fir_decimate_toeplitz_tm(a_ref, wa, d, r_ahist)
-
-        a48, f_hi, f_hq, f_prev, f_ahist, _ = fused_tail_audio_tm(
-            ci, cq, phase, st, w, wa, d, mode, f_hi, f_hq, f_prev, f_ahist,
-            fast=True)
+        r = _xla_tail(ci, cq, phase, st, w, wa, mode, *ref, fast)
+        if packed:
+            y2 = jnp.concatenate([ci, cq], axis=1)
+            ci, cq = y2, y2
+        g = fused_tail_audio_tm(ci, cq, phase, st, w, wa, D, mode, *got,
+                                interpret=True, packed=packed, fast=fast)
+        np.testing.assert_allclose(np.asarray(g[0]), np.asarray(r[0]),
+                                   atol=3e-6)  # audio
+        np.testing.assert_allclose(np.asarray(g[5]), np.asarray(r[5]),
+                                   rtol=1e-5)  # squelch power
+        # mixed-domain FIR history: the same mix arithmetic, bit-exact
+        np.testing.assert_array_equal(np.asarray(g[1]), np.asarray(r[1]))
+        np.testing.assert_array_equal(np.asarray(g[2]), np.asarray(r[2]))
+        np.testing.assert_allclose(np.asarray(g[3]), np.asarray(r[3]),
+                                   atol=1e-6)  # FM lag
+        np.testing.assert_allclose(np.asarray(g[4]), np.asarray(r[4]),
+                                   atol=3e-6)  # audio history
+        ref = (r[1], r[2], r[3], r[4])
+        got = (g[1], g[2], g[3], g[4])
         phase = nco_advance(phase, st, nd)
 
-        np.testing.assert_allclose(np.asarray(a48), np.asarray(a48_ref),
-                                   atol=1e-5)
-        np.testing.assert_allclose(np.asarray(f_hi), np.asarray(r_hi),
-                                   atol=1e-6)
-        np.testing.assert_allclose(np.asarray(f_hq), np.asarray(r_hq),
-                                   atol=1e-6)
-        np.testing.assert_allclose(np.asarray(f_ahist), np.asarray(r_ahist),
-                                   atol=1e-5)
 
-
-def test_pfb_fused_matches_pfb_plus_tail(rng):
-    """fused_pfb_tail_audio_tm (filterbank matmul inside the kernel) ==
-    pfb_channelize_direct_tm + fused_tail_audio_tm, across two carried
-    blocks (filterbank history, mixed FIR tails, demod prev and audio
-    history all cross the boundary)."""
-    from webradio_tpu.ops.channelizer import (
-        bin_weights_for_channels,
-        design_prototype,
-        pfb_channelize_direct_tm,
-        pfb_frames_tm,
-    )
-    from webradio_tpu.ops.pallas_tail_tm import (
-        fused_pfb_tail_audio_tm,
-        fused_tail_audio_tm,
-    )
-
-    nbins, tpp = 8, 16
-    kp = nbins * tpp
-    c, k, d, nd = CHAN_TILE, 64, 5, 2560
-    n = nd * nbins
-    p0 = jnp.asarray(rng.integers(0, 2**31, c).astype(np.uint32))
-    st = jnp.asarray(rng.integers(0, 2**20, c).astype(np.uint32))
-    mode = jnp.asarray((np.arange(c) % 4).astype(np.int32))
-    proto = design_prototype(1_024_000, nbins, tpp)
-    bin_idx = (np.arange(c) % nbins).astype(np.int32)
-    w_pfb = jnp.asarray(bin_weights_for_channels(proto, nbins, bin_idx))
-    coeff = np.asarray(ops.design_lowpass_fir(60_000, 128_000))
-    w = jnp.asarray(ops.toeplitz_weights(coeff, 1, 128))
-    acoeff = np.asarray(ops.design_lowpass_fir(8_000, 128_000))
-    wa = jnp.asarray(ops.toeplitz_weights(acoeff, d, 32))
-
-    hi = jnp.asarray(rng.standard_normal((k - 1, c)).astype(np.float32))
-    hq = jnp.asarray(rng.standard_normal((k - 1, c)).astype(np.float32))
-    prev = jnp.asarray(rng.standard_normal((2, c)).astype(np.float32))
-    ahist = jnp.asarray(rng.standard_normal((k - 1, c)).astype(np.float32))
-    pfb_hist = jnp.zeros((2, kp - 1), jnp.float32)
-
-    f_state = (hi, hq, prev, ahist, pfb_hist)
-    r_state = (hi, hq, prev, ahist, pfb_hist)
-    phase = p0
-    from webradio_tpu.ops.nco import nco_advance
-    for _ in range(2):
-        x = jnp.asarray(rng.standard_normal((2, n)).astype(np.float32))
-
-        ci, cq, r_pfb_hist = pfb_channelize_direct_tm(
-            x, w_pfb, nbins, r_state[4])
-        a_ref, r_hi, r_hq, r_prev, r_ahist, pw_ref = fused_tail_audio_tm(
-            ci, cq, phase, st, w, wa, d, mode,
-            r_state[0], r_state[1], r_state[2], r_state[3])
-        r_state = (r_hi, r_hq, r_prev, r_ahist, r_pfb_hist)
-
-        frames, f_pfb_hist = pfb_frames_tm(x, kp, nbins, f_state[4])
-        a48, f_hi, f_hq, f_prev, f_ahist, pw = fused_pfb_tail_audio_tm(
-            frames, w_pfb.reshape(2 * kp, 2 * c), phase, st, w, wa, d,
-            mode, f_state[0], f_state[1], f_state[2], f_state[3])
-        f_state = (f_hi, f_hq, f_prev, f_ahist, f_pfb_hist)
-        phase = nco_advance(phase, st, nd)
-
-        np.testing.assert_allclose(np.asarray(a48), np.asarray(a_ref),
-                                   atol=3e-5)
-        np.testing.assert_allclose(np.asarray(pw), np.asarray(pw_ref),
-                                   rtol=1e-4)
-        np.testing.assert_allclose(np.asarray(f_hi), np.asarray(r_hi),
-                                   atol=1e-5)
-        np.testing.assert_allclose(np.asarray(f_hq), np.asarray(r_hq),
-                                   atol=1e-5)
-        np.testing.assert_allclose(np.asarray(f_ahist),
-                                   np.asarray(r_ahist), atol=3e-5)
-        np.testing.assert_array_equal(np.asarray(f_pfb_hist),
-                                      np.asarray(r_pfb_hist))
-
-
-def test_uniform_mode_tiles_match_mixed_path(rng):
-    """Per-channel demod selection is lane-independent: a tile whose
-    receivers all share one mode must produce exactly what those lanes
-    produce inside a mixed-mode tile, for every law. (Also the guard
-    test for any future uniform-mode fast path: a scalar-prefetch
-    branchy variant was tried and MEASURED SLOWER on v5e — see
-    BASELINE.md r3 — so the kernel deliberately keeps the straight-line
-    four-law select.)"""
-    nd, c, k = TIME_TILE, CHAN_TILE, 64
-    ci = jnp.asarray(rng.standard_normal((nd, c)).astype(np.float32))
-    cq = jnp.asarray(rng.standard_normal((nd, c)).astype(np.float32))
+@pytest.mark.parametrize("law", ["AM", "FM", "USB", "LSB"])
+def test_mode_set_specialization_matches_generic_kernel(rng, law):
+    """A kernel specialized to one demod law (the static mode_set) gives
+    what the generic four-law kernel gives on those lanes."""
+    nd, c = 1280, BLOCK_C
+    m = ops.MODES.index(law)
     p0 = jnp.asarray(rng.integers(0, 2**31, c).astype(np.uint32))
     st = jnp.asarray(rng.integers(0, 2**31, c).astype(np.uint32))
-    hi = jnp.asarray(rng.standard_normal((k - 1, c)).astype(np.float32))
-    hq = jnp.asarray(rng.standard_normal((k - 1, c)).astype(np.float32))
-    prev = jnp.asarray(rng.standard_normal((2, c)).astype(np.float32))
-    coeff = np.asarray(ops.design_lowpass_fir(600_000, 2_400_000))
-    w = jnp.asarray(ops.toeplitz_weights(coeff, 1, 128))
+    ci = jnp.asarray(rng.standard_normal((nd, c)).astype(np.float32))
+    cq = jnp.asarray(rng.standard_normal((nd, c)).astype(np.float32))
+    w, wa = _weights()
+    carries = _carries(rng, c)
+    uni = jnp.full(c, m, jnp.int32)
+    spec = fused_tail_audio_tm(ci, cq, p0, st, w, wa, D, uni, *carries,
+                               interpret=True, mode_set=(m,))
+    generic = fused_tail_audio_tm(ci, cq, p0, st, w, wa, D, uni, *carries,
+                                  interpret=True)
+    np.testing.assert_allclose(np.asarray(spec[0]), np.asarray(generic[0]),
+                               atol=1e-6)
+    np.testing.assert_allclose(np.asarray(spec[3]), np.asarray(generic[3]),
+                               atol=0)
 
-    # mixed tile (modes vary per lane -> the -1 fallback branch)
-    mixed = jnp.asarray((np.arange(c) % 4).astype(np.int32))
-    a_mixed, *_ = fused_tail_tm(ci, cq, p0, st, w, mixed, hi, hq, prev)
-    for m in range(4):
-        uni = jnp.full(c, m, jnp.int32)
-        a_uni, *_ = fused_tail_tm(ci, cq, p0, st, w, uni, hi, hq, prev)
-        lanes = np.arange(c) % 4 == m
-        # rounding-near, not bit-identical: the two branches compile to
-        # different FMA groupings of the same math
-        np.testing.assert_allclose(
-            np.asarray(a_uni)[:, lanes], np.asarray(a_mixed)[:, lanes],
-            atol=1e-6,
-        )
+
+@pytest.mark.parametrize("offset,stride", [(0, 1), (TIME_TILE, 1),
+                                           (-TIME_TILE, D), (0, D)])
+def test_band_matrix_is_the_direct_fir(rng, offset, stride):
+    """Each banded block is the direct-form FIR restricted to one input
+    tile: W @ x == sum_j h[j] x[stride*i + offset - j]."""
+    h = jnp.asarray(rng.standard_normal(K).astype(np.float32))
+    t = TIME_TILE
+    w = np.asarray(_band_matrix(h, offset, t, t, stride=stride), np.float64)
+    x = rng.standard_normal(t)
+    direct = np.zeros(t)
+    for i in range(t):
+        for j in range(K):
+            l = stride * i + offset - j
+            if 0 <= l < t:
+                direct[i] += float(h[j]) * x[l]
+    np.testing.assert_allclose(w @ x, direct, rtol=1e-6, atol=1e-6)
+
+
+@pytest.mark.parametrize(
+    "nd,c,fast,ok",
+    [
+        (10_240, 32_768, True, True),   # stock rates, headline width
+        (2_560, 64, True, True),
+        (2_560, 40, True, False),       # channels not whole tiles
+        (2_400, 64, False, False),      # time not whole audio tiles
+        (640, 64, False, True),         # table LO: any whole tiles
+        (640, 64, True, False),         # factored LO split below a tile
+    ],
+)
+def test_supported_shapes(nd, c, fast, ok):
+    assert supported(nd, c, D, K, fast) is ok
+
+
+def test_block_c_choice():
+    assert default_block_c(32_768) == BLOCK_C
+    assert default_block_c(4_096) == NARROW_BLOCK_C
+    assert default_block_c(8_192 + 16) == NARROW_BLOCK_C  # not whole tiles
+
+
+def test_long_filters_are_unsupported():
+    assert not supported(10_240, 64, D, TIME_TILE + 2, False)
+
+
+def test_unsupported_shape_raises(rng):
+    w, wa = _weights()
+    c, nd = 40, 2560
+    z = jnp.zeros((nd, c), jnp.float32)
+    u = jnp.zeros(c, jnp.uint32)
+    carries = _carries(rng, c)
+    with pytest.raises(ValueError, match="unsupported shape"):
+        fused_tail_audio_tm(z, z, u, u, w, wa, D, jnp.zeros(c, jnp.int32),
+                            *carries, interpret=True)
+
+
+def test_factored_block_covers_the_block():
+    """The coarse/fine split of the factored LO (shared by both tails) is
+    a power of two whose tiles cover the block; at stock rates it is two
+    kernel time tiles, so the kernel's tile-aligned table reads hold."""
+    for nd in (640, 1280, 2560, 10_240, 20_480):
+        b = factored_block(nd)
+        assert b & (b - 1) == 0 and b * (-(-nd // b)) >= nd
+    assert factored_block(10_240) == 128

@@ -4,9 +4,9 @@ import numpy as np
 import pytest
 import jax.numpy as jnp
 
-from webradio_tpu import ops
-from webradio_tpu.oracle import OracleReceiver
-from webradio_tpu.pipeline import (
+from webradio import ops
+from webradio.oracle import OracleReceiver
+from webradio.pipeline import (
     ChainConfig,
     FrontEndPipeline,
     init_state,
@@ -114,7 +114,7 @@ def test_multichannel_batch(rng):
 
 
 def test_spectrum_output_matches_oracle(rng):
-    from webradio_tpu import oracle
+    from webradio import oracle
 
     n = CFG.block_frames
     iq = make_iq(rng, n, "tone", fs=CFG.sample_rate)
@@ -157,8 +157,8 @@ def test_process_host_serving_path(rng):
 def test_af_gain_and_squelch(rng):
     """af_gain scales audio; a squelch threshold above the channel power
     mutes it (both inert stubs in the reference, receiverhandler.cxx:118)."""
-    from webradio_tpu.pipeline import make_receiver_params, init_state
-    from webradio_tpu.pipeline.frontend import frontend_step
+    from webradio.pipeline import make_receiver_params, init_state
+    from webradio.pipeline.frontend import frontend_step
 
     iq = _as_planes(make_iq(rng, CFG.block_frames, "fm", fs=CFG.sample_rate))
 
@@ -184,8 +184,8 @@ def test_af_gain_and_squelch(rng):
 def test_squelch_positive_threshold_and_disable(rng):
     """Positive-dB thresholds gate for real (no silent 'off at >= 0'
     wraparound); None — the REST layer's JSON null — disables the gate."""
-    from webradio_tpu.pipeline import make_receiver_params, init_state
-    from webradio_tpu.pipeline.frontend import frontend_step
+    from webradio.pipeline import make_receiver_params, init_state
+    from webradio.pipeline.frontend import frontend_step
 
     iq = _as_planes(make_iq(rng, CFG.block_frames, "fm", fs=CFG.sample_rate))
 
@@ -208,7 +208,7 @@ def test_squelch_gate_equivalent_across_engines(rng):
     decision. All engines gate on POST-shaping-FIR power — the unified
     basis — so the `auto` engine flip at 16 channels can never change
     which receivers are muted."""
-    from webradio_tpu.pipeline.channelized import (
+    from webradio.pipeline.channelized import (
         ChannelizedConfig,
         channelized_step,
         init_channelized_state,

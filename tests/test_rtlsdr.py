@@ -4,7 +4,7 @@ The reference driver's contract (src/io/rtlsdrtuner.cxx): enumerate
 dongles by USB serial (:45-55), open by serial and read identity/achieved
 rate back (:185-248), write control through to the open device and cache
 when closed (:119-183), convert u8 samples as ``(x - 128) / 128``
-(:92-95). ``webradio_tpu.io.rtlsdr`` binds librtlsdr with ctypes; these
+(:92-95). ``webradio.io.rtlsdr`` binds librtlsdr with ctypes; these
 tests inject a pure-Python fake through the module's ``set_library`` seam
 so the full driver logic runs hardware-free (SURVEY §4's TunerFactory
 test strategy).
@@ -15,8 +15,8 @@ import ctypes
 import numpy as np
 import pytest
 
-from webradio_tpu.io import rtlsdr
-from webradio_tpu.io.tuner import TUNER_DRIVERS
+from webradio.io import rtlsdr
+from webradio.io.tuner import TUNER_DRIVERS
 
 
 class FakeLib:

@@ -5,13 +5,13 @@ import pytest
 import jax
 import jax.numpy as jnp
 
-from webradio_tpu.pipeline import (
+from webradio.pipeline import (
     ChainConfig,
     init_state,
     make_receiver_params,
     frontend_step,
 )
-from webradio_tpu.parallel import make_mesh, mesh_shape_for, ShardedFrontEnd
+from webradio.parallel import make_mesh, mesh_shape_for, ShardedFrontEnd
 from conftest import make_iq, snr_db
 
 CFG = ChainConfig(
@@ -113,15 +113,15 @@ class TestMultihost:
     """Degenerate single-process coverage of the multi-host helpers."""
 
     def test_init_noop_without_coordinator(self, monkeypatch):
-        from webradio_tpu.parallel.multihost import init_distributed
+        from webradio.parallel.multihost import init_distributed
 
         monkeypatch.delenv("JAX_COORDINATOR_ADDRESS", raising=False)
         assert init_distributed() is False
 
     def test_host_slice_and_global_block(self):
         import numpy as np
-        from webradio_tpu.parallel import make_mesh
-        from webradio_tpu.parallel.multihost import (
+        from webradio.parallel import make_mesh
+        from webradio.parallel.multihost import (
             host_time_slice, make_global_block,
         )
 
@@ -138,12 +138,12 @@ class TestMultihost:
     def test_sharded_step_consumes_global_block(self):
         import jax.numpy as jnp
         import numpy as np
-        from webradio_tpu.parallel import make_mesh
-        from webradio_tpu.parallel.multihost import make_global_block
-        from webradio_tpu.parallel.sharded_channelized import (
+        from webradio.parallel import make_mesh
+        from webradio.parallel.multihost import make_global_block
+        from webradio.parallel.sharded_channelized import (
             ShardedChannelizedFrontEnd,
         )
-        from webradio_tpu.pipeline.channelized import (
+        from webradio.pipeline.channelized import (
             ChannelizedConfig, make_channelized_params,
         )
 
@@ -166,8 +166,8 @@ def test_tm_shard_body_matches_stage_body(rng, monkeypatch):
     """The time-major shard body (local-tail-recompute halos + fused tail)
     reproduces the stage-by-stage body on identical params/state across
     carried blocks."""
-    from webradio_tpu.parallel import sharded_channelized as sc
-    from webradio_tpu.pipeline.channelized import (
+    from webradio.parallel import sharded_channelized as sc
+    from webradio.pipeline.channelized import (
         ChannelizedConfig, make_channelized_params,
     )
 
@@ -206,35 +206,33 @@ def test_tm_shard_body_matches_stage_body(rng, monkeypatch):
                                    atol=2e-4)
 
 
-def test_sharded_pallas_tail_matches_xla_body(rng):
-    """VERDICT r1 #7: the sharded + Pallas-tail combination, pinned by CI.
+def test_sharded_pallas_tail_matches_xla_body(rng, interpret_kernel):
+    """The sharded + fused-tail combination, pinned by CI.
 
-    _shard_body_tm's halo RECOMPUTE must stay bit-consistent with what the
-    fused Pallas kernels (interpret mode on the CPU mesh) actually carry —
-    tail_kernel="pallas" forced with c_local == CHAN_TILE and
-    nd_local == TIME_TILE on a (time=2, chan=2) mesh, three carried blocks
-    against the XLA shard body.
+    _shard_body_tm's halo RECOMPUTE must stay consistent with what the
+    fused kernel (interpret mode on the CPU mesh) computes —
+    tail_kernel="pallas" forced with c_local == BLOCK_C on a
+    (time=2, chan=2) mesh, three carried blocks against the XLA shard
+    body.
     """
-    from webradio_tpu.ops.pallas_tail_tm import CHAN_TILE, TIME_TILE
-    from webradio_tpu.parallel import sharded_channelized as sc
-    from webradio_tpu.pipeline.channelized import (
-        ChannelizedConfig, make_channelized_params,
+    from webradio.ops.pallas_tail_tm import BLOCK_C, TIME_TILE
+    from webradio.parallel import sharded_channelized as sc
+    from webradio.pipeline.channelized import (
+        ChannelizedConfig, _use_fused_tail, make_channelized_params,
     )
 
     t_shards, c_shards = 2, 2
-    c = c_shards * CHAN_TILE
+    c = c_shards * BLOCK_C
     base = dict(
         sample_rate=1_024_000, channel_rate=128_000, audio_rate=32_000,
         num_channels=c,
-        # the Pallas kernel mixes with the 16-bit-table NCO law; pin the
-        # XLA body to the same law (fast_nco evaluates the LO at full
-        # 31-bit phase — a ~1e-4 rad LO difference that the FM
-        # discriminator amplifies) so the comparison isolates the halo
-        # recompute, not the mixer law
+        # the 16-bit-table NCO law on both tails
         fast_nco=False,
     )
     num_bins = base["sample_rate"] // base["channel_rate"]
-    base["block_frames"] = t_shards * num_bins * TIME_TILE
+    decim = base["channel_rate"] // base["audio_rate"]
+    # two audio tiles of the kernel per time shard
+    base["block_frames"] = t_shards * num_bins * 2 * TIME_TILE * decim
 
     ifs = [(i * 7_001 - 400_000) % 512_000 - 256_000 for i in range(c)]
     modes = ["FM", "AM", "USB", "LSB"] * (c // 4)
@@ -250,11 +248,11 @@ def test_sharded_pallas_tail_matches_xla_body(rng):
     cfg_p, params_p = make("pallas")
     nd_local = cfg_p.block_frames // t_shards // num_bins
     assert sc._tm_body_eligible(cfg_p, t_shards, params_p)
-    assert sc._tm_uses_pallas(cfg_p, nd_local, c // c_shards, params_p), (
-        "test setup no longer forces the Pallas shard tail"
+    assert _use_fused_tail(cfg_p, nd_local, c // c_shards, params_p), (
+        "test setup no longer forces the fused shard tail"
     )
     cfg_x, params_x = make("xla")
-    assert not sc._tm_uses_pallas(cfg_x, nd_local, c // c_shards, params_x)
+    assert not _use_fused_tail(cfg_x, nd_local, c // c_shards, params_x)
 
     # Noise for AM/USB/LSB + a strong carrier at every FM channel's IF:
     # the atan2 discriminator has branch cuts, so FM-of-pure-noise
@@ -278,44 +276,44 @@ def test_sharded_pallas_tail_matches_xla_body(rng):
 
     fe_p = sc.ShardedChannelizedFrontEnd(cfg_p, params_p, mesh)
     outs_p = [fe_p.process(b) for b in blocks]
+    assert interpret_kernel, "the shard body never reached the kernel"
     fe_x = sc.ShardedChannelizedFrontEnd(cfg_x, params_x, mesh)
     outs_x = [fe_x.process(b) for b in blocks]
 
     for i, ((a_p, s_p), (a_x, s_x)) in enumerate(zip(outs_p, outs_x)):
         np.testing.assert_allclose(
             np.asarray(a_p), np.asarray(a_x), atol=1e-5,
-            err_msg=f"block {i}: pallas shard tail diverged from xla body",
+            err_msg=f"block {i}: fused shard tail diverged from xla body",
         )
         np.testing.assert_allclose(np.asarray(s_p), np.asarray(s_x),
                                    atol=1e-3)
-    # the halo recompute is BIT-consistent with the fused kernel's carries
+    # the carries come from the halo recompute on both bodies
     for f_p, f_x in zip(fe_p.state, fe_x.state):
         np.testing.assert_array_equal(np.asarray(f_p), np.asarray(f_x))
 
 
-def test_sharded_u8exact_params_route(rng):
-    """pfb_precision="u8exact" threads through the sharded step: the
-    split-weight params leaf shards on the channel axis and the sharded
-    audio equals the single-device step (off-TPU both route through the
-    f32 fallback — this pins the pytree/spec plumbing and parity)."""
-    from webradio_tpu.pipeline.channelized import (
+@pytest.mark.parametrize("pfb", ["bf16", "highest", "default"])
+def test_sharded_pfb_tier_params_route(rng, pfb):
+    """Every filterbank tier threads through the sharded step: the
+    sharded audio equals the single-device step at the same tier (this
+    pins the params spec plumbing and parity)."""
+    from webradio.pipeline.channelized import (
         ChannelizedConfig,
         channelized_step,
         init_channelized_state,
         make_channelized_params,
     )
-    from webradio_tpu.parallel import make_mesh
-    from webradio_tpu.parallel.sharded_channelized import (
+    from webradio.parallel import make_mesh
+    from webradio.parallel.sharded_channelized import (
         ShardedChannelizedFrontEnd,
     )
 
     cfg = ChannelizedConfig(
         sample_rate=1_024_000, channel_rate=128_000, audio_rate=32_000,
-        block_frames=16_384, num_channels=8, pfb_precision="u8exact",
+        block_frames=16_384, num_channels=8, pfb_precision=pfb,
     )
     ifs = [((i % 8) - 4) * 100_000 for i in range(8)]
     params = make_channelized_params(cfg, ifs, 80_000, 8_000, "FM")
-    assert params.pfb_weights_split is not None
 
     raw = rng.integers(0, 256, (2, cfg.block_frames)).astype(np.float32)
     iq = jnp.asarray((raw - 128.0) / 128.0)

@@ -16,9 +16,9 @@ import time
 import numpy as np
 import pytest
 
-from webradio_tpu.io import soundcard
-from webradio_tpu.io.soundcard import PulseAudioSource, SoundcardIQSource
-from webradio_tpu.io.tuner import TUNER_DRIVERS, SoundcardTuner
+from webradio.io import soundcard
+from webradio.io.soundcard import PulseAudioSource, SoundcardIQSource
+from webradio.io.tuner import TUNER_DRIVERS, SoundcardTuner
 
 
 class _Fn:
@@ -129,9 +129,9 @@ def test_live_app_soundcard_tuner(monkeypatch):
     audio stream (pacing comes from the mocked soundcard clock)."""
     fake = FakePulse(rate=256_000)
     monkeypatch.setattr(soundcard, "_PA", fake)
-    from webradio_tpu.app import RadioApp
-    from webradio_tpu.radio import Radio
-    from webradio_tpu.web.audiostream import AudioStreamManager
+    from webradio.app import RadioApp
+    from webradio.radio import Radio
+    from webradio.web.audiostream import AudioStreamManager
 
     Radio.reset()
     AudioStreamManager.reset()

@@ -11,16 +11,16 @@ import pytest
 import jax.numpy as jnp
 
 from conftest import make_iq
-from webradio_tpu.pipeline import ChainConfig, FrontEndPipeline, make_receiver_params
-from webradio_tpu.pipeline.channelized import (
+from webradio.pipeline import ChainConfig, FrontEndPipeline, make_receiver_params
+from webradio.pipeline.channelized import (
     ChannelizedConfig,
     ChannelizedPipeline,
     channelized_step,
     init_channelized_state,
     make_channelized_params,
 )
-from webradio_tpu.pipeline.stream import run_capture_channelized
-from webradio_tpu.io.ring import BlockRing
+from webradio.pipeline.stream import run_capture_channelized
+from webradio.io.ring import BlockRing
 
 FS, CR, AR, BF = 1_024_000, 128_000, 32_000, 16_384
 N_BLOCKS = 3
@@ -70,8 +70,8 @@ def test_channelized_capture_scan_matches_per_block(rng):
 
 @pytest.mark.parametrize("tshape", [(2, 2), (4, 1), (2, 4)])
 def test_sharded_capture_scan_matches_single_device(rng, tshape):
-    from webradio_tpu.parallel import make_mesh
-    from webradio_tpu.parallel.sharded_channelized import run_capture_sharded
+    from webradio.parallel import make_mesh
+    from webradio.parallel.sharded_channelized import run_capture_sharded
 
     t, c = tshape
     if c > CCFG.num_channels:

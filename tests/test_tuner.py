@@ -14,13 +14,13 @@ import threading
 import numpy as np
 import pytest
 
-from webradio_tpu.io.tuner import (
+from webradio.io.tuner import (
     RTL_GAIN_TABLES,
     RtlTcpTuner,
     Tuner,
     rtl_effective_sample_rate,
 )
-from webradio_tpu.io.source import ToneSource
+from webradio.io.source import ToneSource
 
 
 class _FakeRtlTcp:
@@ -97,7 +97,7 @@ class TestRtlTcpReadback:
     def test_header_decodes_dongle_identity(self, monkeypatch):
         # force the pure-Python socket path so the header parse under
         # test is the tuner's own
-        from webradio_tpu.io import native
+        from webradio.io import native
         monkeypatch.setattr(native, "available", lambda: False)
         srv = _FakeRtlTcp(tuner_type=5, gain_count=29)
         try:
@@ -111,7 +111,7 @@ class TestRtlTcpReadback:
             srv.close()
 
     def test_gain_quantizes_to_device_table(self, monkeypatch):
-        from webradio_tpu.io import native
+        from webradio.io import native
         monkeypatch.setattr(native, "available", lambda: False)
         srv = _FakeRtlTcp(tuner_type=5)
         try:
@@ -144,10 +144,10 @@ def test_waterfall_reports_effective_rate(monkeypatch):
     ACTUAL rate, not the requested one (rtlsdrtuner.cxx:226-228)."""
     import json
 
-    from webradio_tpu.radio import FrontEnd, Radio
-    from webradio_tpu.io.tuner import ToneTuner
-    from webradio_tpu.pipeline import ChainConfig
-    from webradio_tpu.web.handlers import WaterfallHandler, _tuner_info
+    from webradio.radio import FrontEnd, Radio
+    from webradio.io.tuner import ToneTuner
+    from webradio.pipeline import ChainConfig
+    from webradio.web.handlers import WaterfallHandler, _tuner_info
 
     Radio.reset()
     try:
@@ -175,10 +175,10 @@ def test_waterfall_reports_effective_rate(monkeypatch):
 def test_frontend_frequency_plan_follows_actual_rate():
     """FrontEnd.start() reads the effective rate back and rebuilds the
     NCO plan against it (the analog of _outputSampleRate readback)."""
-    from webradio_tpu.radio import FrontEnd, Radio, Receiver
-    from webradio_tpu.io.tuner import ToneTuner
-    from webradio_tpu.ops.nco import nco_phase_step
-    from webradio_tpu.pipeline import ChainConfig
+    from webradio.radio import FrontEnd, Radio, Receiver
+    from webradio.io.tuner import ToneTuner
+    from webradio.ops.nco import nco_phase_step
+    from webradio.pipeline import ChainConfig
 
     class QuantizingTuner(ToneTuner):
         @property

@@ -1,29 +1,32 @@
-"""Full-channelized-step A/B on the real chip: one config per process.
+"""Full-channelized-step timing on the device: one config per process.
 
-Usage: python exp_step.py C FIR_PREC PFB_PREC INTERLEAVE(0/1) MODESET(0/1)
-Prints one JSON line with step_ms.
+Usage: python tools/exp_step.py C FIR_PREC PFB_PREC MODESET(0/1) [TAIL]
+       [SERVING(0/1)]
+Prints one JSON line with step_ms and the device it ran on.
 """
 import os as _os
 import sys as _sys
 _sys.path.insert(0, _os.path.dirname(_os.path.dirname(_os.path.abspath(__file__))))
 import json
-import os
 import sys
 import time
 
 c = int(sys.argv[1])
 fir = sys.argv[2]
 pfb = sys.argv[3]
-os.environ["WEBRADIO_TM_INTERLEAVE"] = sys.argv[4]
-use_ms = sys.argv[5] == "1"
-tail = sys.argv[6] if len(sys.argv) > 6 else "auto"
-serving = len(sys.argv) > 7 and sys.argv[7] == "1"
+use_ms = sys.argv[4] == "1"
+tail = sys.argv[5] if len(sys.argv) > 5 else "auto"
+serving = len(sys.argv) > 6 and sys.argv[6] == "1"
 
 import numpy as np  # noqa: E402
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 
-from webradio_tpu.pipeline.channelized import (  # noqa: E402
+from webradio import runtime  # noqa: E402
+
+runtime.configure_compile_cache()
+
+from webradio.pipeline.channelized import (  # noqa: E402
     ChannelizedConfig,
     channelized_step,
     channelized_step_serving,
@@ -58,8 +61,8 @@ for _ in range(3):
     times.append((time.perf_counter() - t0) / STEPS)
 dt = sorted(times)[1]
 print(json.dumps({
-    "c": c, "fir": fir, "pfb": pfb, "tail": tail, "interleave": sys.argv[4],
-    "mode_set": use_ms, "serving": serving, "step_ms": round(dt * 1e3, 2),
+    "c": c, "fir": fir, "pfb": pfb, "tail": tail,
+    "device": runtime.describe_devices(), "mode_set": use_ms, "serving": serving, "step_ms": round(dt * 1e3, 2),
     "rt_channels": round(c * cfg.block_seconds / dt, 1),
     "realtime": dt <= cfg.block_seconds,
 }))

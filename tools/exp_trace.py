@@ -20,11 +20,13 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 
-from webradio_tpu.pipeline.channelized import (
+from webradio import runtime
+from webradio.pipeline.channelized import (
     ChannelizedConfig, channelized_step, init_channelized_state,
     make_channelized_params, mode_set_of,
 )
 
+runtime.configure_compile_cache()
 c = int(sys.argv[1]) if len(sys.argv) > 1 else 32768
 fir = sys.argv[2] if len(sys.argv) > 2 else "highest"
 pfb = sys.argv[3] if len(sys.argv) > 3 else "default"
@@ -60,13 +62,13 @@ host_total = 0.0
 for f in files:
     tr = json.loads(gzip.open(f).read())
     events = tr.get("traceEvents", [])
-    # device lanes: processes whose metadata name mentions the device
+    # device lanes: the GPU's processes ("/device:GPU:<n>" and its
+    # stream lanes); everything else is host threads
     dev_pids = set()
     for ev in events:
         if (ev.get("ph") == "M" and ev.get("name") == "process_name"):
             pname = (ev.get("args") or {}).get("name", "")
-            if any(k in pname for k in ("TPU", "Device", "/device",
-                                        "XLA Ops", "GPU")):
+            if "/device:GPU" in pname:
                 dev_pids.add(ev.get("pid"))
     for ev in events:
         if ev.get("ph") != "X" or "dur" not in ev:
@@ -81,6 +83,7 @@ per_step = {n: round(d / steps / 1e3, 3)  # us -> ms per step
 top = sorted(per_step.items(), key=lambda kv: -kv[1])[:30]
 print(json.dumps({
     "c": c, "fir": fir, "pfb": pfb, "steps": steps,
+    "device": runtime.describe_devices(),
     "device_total_ms_per_step": round(sum(per_step.values()), 2),
     "top_device_ops_ms_per_step": [[n[:100], d] for n, d in top],
 }))
